@@ -9,7 +9,7 @@ sponza-scale meshes (~262k tris) build in seconds and are cached on disk.
 
 Output is an *implicit binary tree in depth-first order* which the
 flattening pass (accel/flatten.py) threads with hit/miss skip links — the
-TPU traversal loop is stackless.
+traversal loop is stackless.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 //
 // Plays the role of the reference's in-repo C++ builders
 // (reference: core/fast_bvh_builder.h binned SAH, core/sbvh_builder.h
-// spatial splits) for the TPU framework: the Python/NumPy builder is the
+// spatial splits) for this renderer: the Python/NumPy builder is the
 // portable fallback; this one is the fast path for large scenes.
 //
 // Algorithm: top-down binned SAH. All three axes are binned (32 bins)

@@ -1,7 +1,7 @@
 """ctypes binding for the native C++ BVH builder.
 
 The reference's builders are in-repo C++ (core/fast_bvh_builder.h,
-core/sbvh_builder.h); this is the TPU framework's native equivalent. The
+core/sbvh_builder.h); this is the renderer's native equivalent. The
 shared library is compiled on first use (g++ -O3) and cached next to the
 source; the NumPy builder (accel/builder.py) remains the portable
 fallback so nothing hard-depends on a toolchain.

@@ -1,10 +1,10 @@
 """Counter-based, vectorised RNG for on-device path tracing.
 
 The reference renderer carries a 64-bit MWC64X RNG per ray state
-(reference: render/random.h:15-47).  On TPU we want something stateless
+(reference: render/random.h:15-47).  On the device we want something stateless
 and fully vectorised: a small per-ray uint32 state advanced by a PCG step,
 seeded by hashing (pixel_id, sample_id, frame).  Two integer multiplies per
-sample; vectorises perfectly on the VPU and keeps ray state at 4 bytes.
+sample; vectorises perfectly and keeps ray state at 4 bytes.
 
 All functions operate elementwise on arbitrary-shaped uint32 arrays.
 """

@@ -18,6 +18,7 @@ import argparse
 import sys
 
 from ..scene.build import build_scene
+from ..utils.cache import enable_compile_cache
 from ..utils.log import logger
 from .engine import make_frame_fn
 from .renderer import ProgressiveRenderer, RenderSettings
@@ -28,7 +29,7 @@ ALGORITHMS = ("pt", "bpt", "vcm", "ppm", "lt", "vcm_pt")
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="imbatracer-tpu",
-        description="TPU-native interactive global illumination renderer",
+        description="JAX global illumination renderer (CPU or NVIDIA GPU)",
     )
     p.add_argument("scene", help="path to a .scene file")
     p.add_argument("output", nargs="?", default="render.png", help="output PNG")
@@ -87,6 +88,7 @@ def settings_from_args(args) -> RenderSettings:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    enable_compile_cache()
     settings = settings_from_args(args)
 
     scene, meta = build_scene(args.scene, quiet=args.quiet, spatial=args.sbvh)

@@ -3,7 +3,7 @@
 Plays the role of the reference's SDL render window and camera controller
 (reference: frontend/render_window.cpp:50-162 event/render loop,
 frontend/main.cpp:19-85 CameraControl): WASD/QE move, IJKL look, camera
-moves reset accumulation, the image redraws live.  TPU-native twist: the
+moves reset accumulation, the image redraws live.  The difference: the
 camera is a *traced pytree argument* of the compiled frame program
 (engine.make_camera_frame_fn), so moving it costs zero recompiles — the
 same jitted megastep renders every viewpoint.

@@ -3,7 +3,7 @@
 The reference serialises both platform layouts into one chained-block
 container file (magic 0x313F1A57; reference: loaders/load_bvh.cpp:45-302)
 referenced by `accel` lines in .scene files or written via
-`--write-accel`.  The TPU build has a single traversal layout, so the
+`--write-accel`.  This renderer has a single traversal layout, so the
 cache is one compressed npz per *scene* (world-space flattened BVH),
 keyed by a fingerprint of the source assets and builder version so stale
 caches are rejected — the role the reference's magic/type tags play.

@@ -2,10 +2,10 @@
 
 The reference's parallelism is host threads over image tiles
 (reference: render/scheduling/tile_scheduler.h:69-78) plus a GPU offload
-per queue.  The TPU equivalent (SURVEY.md §5): shard the *ray batch*
-across chips over ICI — the scene is replicated in HBM on every chip
-(it is read-only), each chip traces its ray shard fully on-device, splats
-a partial film, and a single `psum` over the mesh reduces films.  No other
+per queue.  Here (SURVEY.md §5) the *ray batch* shards across devices —
+the scene is replicated in every device's memory (it is read-only), each
+device traces its ray shard fully on-device, splats a partial film, and a
+single `psum` over the mesh reduces films.  No other
 communication exists in the whole frame: this is embarrassingly parallel
 modulo one collective, which is exactly why the wavefront design scales.
 
@@ -27,6 +27,7 @@ from ..render.film import splat
 from ..render.integrators.pt import (_compact_carry, _init_carry, _pt_bounce,
                                      alpha_fn_for, camera_rays, compact_depth,
                                      trace_paths)
+from ..render.integrators.vcm import BAND_RAYS as VCM_BAND_RAYS
 from ..render.light_cache import LightVertexCache, empty_cache
 
 RAY_AXIS = "rays"
@@ -40,12 +41,12 @@ def make_mesh(devices=None) -> Mesh:
 @partial(
     jax.jit,
     static_argnames=("width", "height", "spp", "max_len", "has_masks",
-                     "has_bump", "mesh", "max_steps", "with_stats",
+                     "has_bump", "mesh", "with_stats",
                      "band_pixels"),
 )
 def _pt_band_sharded(
     scene, cam, frame, start_pixel, *, width, height, spp, max_len,
-    has_masks, has_bump, mesh, max_steps, with_stats, band_pixels,
+    has_masks, has_bump, mesh, with_stats, band_pixels,
 ):
     """One sharded PT pixel band: rays for [start, start+n_dev*band) are
     generated replicated, sharded over the mesh, traced, splatted per
@@ -59,7 +60,7 @@ def _pt_band_sharded(
     def shard_fn(scene, cam, org, d, state, pixel_id):
         out = trace_paths(
             scene, org, d, state, max_len, has_masks=has_masks,
-            has_bump=has_bump, max_steps=max_steps, with_stats=with_stats,
+            has_bump=has_bump, with_stats=with_stats,
         )
         radiance, n_rays = out if with_stats else (out, None)
         film = jax.lax.psum(splat(radiance, pixel_id, num_pixels), RAY_AXIS)
@@ -96,9 +97,9 @@ _PT_CARRY_KEYS = ("active", "d", "depth", "last_pdf", "last_specular", "org",
 
 @partial(jax.jit, static_argnames=(
     "width", "height", "spp", "max_len", "has_masks", "has_bump", "mesh",
-    "max_steps", "bounces", "band_lanes"))
+    "bounces", "band_lanes"))
 def _pt_phase1_compact_sharded(scene, cam, frame, *, width, height, spp,
-                               max_len, has_masks, has_bump, mesh, max_steps,
+                               max_len, has_masks, has_bump, mesh,
                                bounces, band_lanes):
     """Whole-frame phase 1: every shard traces its local bands for
     `bounces` bounces and compacts locally.  Returns (sorted carry
@@ -113,8 +114,7 @@ def _pt_phase1_compact_sharded(scene, cam, frame, *, width, height, spp,
     def shard_fn(scene, cam, org, d, state, pixel_id):
         def body(i, cc):
             return _pt_bounce(scene, cc, alpha_fn=alpha_fn,
-                              has_bump=has_bump, max_len=max_len,
-                              max_steps=max_steps)
+                              has_bump=has_bump, max_len=max_len)
 
         carries, n_rays = [], None
         for s in range(0, lanes_local, band_lanes):
@@ -141,10 +141,10 @@ def _pt_phase1_compact_sharded(scene, cam, frame, *, width, height, spp,
 
 
 @partial(jax.jit, static_argnames=(
-    "max_len", "has_masks", "has_bump", "max_steps", "mesh", "bounces",
+    "max_len", "has_masks", "has_bump", "mesh", "bounces",
     "size"))
 def _pt_phase2_sharded(scene, sc, start, *, max_len, has_masks, has_bump,
-                       max_steps, mesh, bounces, size):
+                       mesh, bounces, size):
     """Bounce local rows [start, start+size) of the compacted carry on
     every shard; writes results back in place."""
     alpha_fn = alpha_fn_for(scene) if has_masks else None
@@ -158,8 +158,7 @@ def _pt_phase2_sharded(scene, sc, start, *, max_len, has_masks, has_bump,
 
         def body(i, cc):
             return _pt_bounce(scene, cc, alpha_fn=alpha_fn,
-                              has_bump=has_bump, max_len=max_len,
-                              max_steps=max_steps)
+                              has_bump=has_bump, max_len=max_len)
 
         out = jax.lax.fori_loop(0, bounces, body, ck)
         n = out.pop("n_rays")
@@ -187,7 +186,7 @@ def _scatter_film_sharded(pix, rad, *, mesh, num_pixels):
 
 def _render_pt_frame_compact_sharded(scene, cam, frame, width, height, spp,
                                      max_len, has_masks, has_bump,
-                                     with_stats, max_steps, mesh, band_lanes):
+                                     with_stats, mesh, band_lanes):
     num_pixels = width * height
     n_dev = mesh.devices.size
     depth0 = compact_depth(max_len)
@@ -196,7 +195,7 @@ def _render_pt_frame_compact_sharded(scene, cam, frame, width, height, spp,
     sc, pix, alive, n_rays = _pt_phase1_compact_sharded(
         scene, cam, frame, width=width, height=height, spp=spp,
         max_len=max_len, has_masks=has_masks, has_bump=has_bump, mesh=mesh,
-        max_steps=max_steps, bounces=depth0, band_lanes=band_lanes)
+        bounces=depth0, band_lanes=band_lanes)
 
     n_alive = int(jnp.max(alive))  # the one host sync
     todo = min(lanes_local,
@@ -206,7 +205,7 @@ def _render_pt_frame_compact_sharded(scene, cam, frame, width, height, spp,
         size = min(band_lanes, lanes_local - start)
         sc, n2 = _pt_phase2_sharded(
             scene, sc, jnp.int32(start), max_len=max_len,
-            has_masks=has_masks, has_bump=has_bump, max_steps=max_steps,
+            has_masks=has_masks, has_bump=has_bump,
             mesh=mesh, bounces=max_len - depth0, size=size)
         n_rays = n_rays + n2
         start += size
@@ -228,7 +227,6 @@ def render_pt_frame_sharded(
     max_len: int = 10,
     has_masks: bool = False,
     has_bump: bool = False,
-    max_steps: int = 0,
     with_stats: bool = False,
 ):
     """Data-parallel PT frame over `mesh`; returns the full (H*W, 3) film
@@ -241,7 +239,7 @@ def render_pt_frame_sharded(
     # Per-device dispatch cap, same rationale as the single-chip bands.
     band = min(BAND_RAYS // max(spp, 1), max(num_pixels // n_dev, 1))
 
-    # Mid-frame compaction (same mode-adaptive default as the single-chip
+    # Mid-frame compaction (same default as the single-chip
     # renderer, pt._use_compact) when shards have multiple local bands and
     # lanes split evenly over the mesh.
     from ..render.integrators.pt import _use_compact
@@ -250,11 +248,10 @@ def render_pt_frame_sharded(
     lanes_local = (num_pixels * spp) // n_dev
     num_bands_local = (-(-lanes_local // band_lanes)
                        if (num_pixels * spp) % n_dev == 0 else 1)
-    if num_bands_local > 1 and _use_compact(
-            num_bands_local, max_len, getattr(scene.bvh, "mode", "")):
+    if num_bands_local > 1 and _use_compact(num_bands_local, max_len):
         return _render_pt_frame_compact_sharded(
             scene, cam, frame, width, height, spp, max_len, has_masks,
-            has_bump, with_stats, max_steps, mesh, band_lanes)
+            has_bump, with_stats, mesh, band_lanes)
     film = jnp.zeros((num_pixels, 3), jnp.float32)
     stats = jnp.zeros((), jnp.int32)
     # Sharded bands cover exactly bp * n_dev pixels each; the final
@@ -267,7 +264,7 @@ def render_pt_frame_sharded(
         out = _pt_band_sharded(
             scene, cam, frame, jnp.int32(start), width=width, height=height,
             spp=spp, max_len=max_len, has_masks=has_masks, has_bump=has_bump,
-            mesh=mesh, max_steps=max_steps, with_stats=with_stats,
+            mesh=mesh, with_stats=with_stats,
             band_pixels=bp,
         )
         if with_stats:
@@ -284,7 +281,7 @@ def render_pt_frame_sharded(
         out = _pt_band(
             scene, cam, frame, jnp.int32(start), width=width, height=height,
             spp=spp, max_len=max_len, has_masks=has_masks, has_bump=has_bump,
-            with_stats=with_stats, max_steps=max_steps, band_pixels=tail,
+            with_stats=with_stats, band_pixels=tail,
         )
         part = out[0] if with_stats else out
         film = film.at[start : start + tail].add(part)
@@ -317,6 +314,7 @@ def render_pt_frame_sharded(
 # style merge per light band and one psum per film.
 
 
+@partial(jax.jit, static_argnames=("n_dev",))
 def _merge_cache(global_cache: LightVertexCache,
                  shard_cache: LightVertexCache,
                  n_dev: int) -> LightVertexCache:
@@ -356,13 +354,13 @@ def _merge_cache(global_cache: LightVertexCache,
 
 @partial(jax.jit, static_argnames=(
     "mesh", "algo", "num_pixels", "light_path_count", "max_len",
-    "local_capacity", "has_masks", "has_bump", "max_steps", "techniques",
+    "local_capacity", "has_masks", "has_bump", "techniques",
     "band_paths", "admit_cap",
 ))
 def _vcm_light_band_sharded(scene, cam, frame, base_radius, path_start, *,
                             mesh, algo, num_pixels, light_path_count,
                             max_len, local_capacity, has_masks, has_bump,
-                            max_steps, techniques, band_paths, admit_cap=0):
+                            techniques, band_paths, admit_cap=0):
     """One sharded light band: every device traces `band_paths` paths into
     an empty local cache.  Returns (film (psum'd, replicated), local
     caches with leading shard axis)."""
@@ -382,7 +380,7 @@ def _vcm_light_band_sharded(scene, cam, frame, base_radius, path_start, *,
             algo=algo, num_pixels=num_pixels,
             light_path_count=light_path_count, max_len=max_len,
             cache_capacity=local_capacity, has_masks=has_masks,
-            has_bump=has_bump, alpha_fn=alpha_fn, max_steps=max_steps,
+            has_bump=has_bump, alpha_fn=alpha_fn,
             techniques=techniques, path_start=my_start,
             band_paths=band_paths, cache_in=empty_cache(local_capacity),
             admit_cap=admit_cap,
@@ -402,13 +400,13 @@ def _vcm_light_band_sharded(scene, cam, frame, base_radius, path_start, *,
 @partial(jax.jit, static_argnames=(
     "mesh", "algo", "width", "height", "spp", "max_len", "light_path_count",
     "num_connections", "num_knn", "table_size", "max_per_cell", "has_masks",
-    "has_bump", "max_steps", "techniques", "band_pixels", "mat_kinds",
+    "has_bump", "techniques", "band_pixels", "mat_kinds",
 ))
 def _vcm_camera_band_sharded(scene, cam, frame, cache, grid, base_radius,
                              start_pixel, *, mesh, algo, width, height, spp,
                              max_len, light_path_count, num_connections,
                              num_knn, table_size, max_per_cell, has_masks,
-                             has_bump, max_steps, techniques, band_pixels,
+                             has_bump, techniques, band_pixels,
                              mat_kinds=None):
     """One sharded camera band: each device renders `band_pixels` pixels
     with the replicated merged cache; films concatenate along the mesh."""
@@ -430,7 +428,7 @@ def _vcm_camera_band_sharded(scene, cam, frame, cache, grid, base_radius,
             num_connections=num_connections, num_knn=num_knn,
             table_size=table_size, max_per_cell=max_per_cell,
             has_masks=has_masks, has_bump=has_bump, alpha_fn=alpha_fn,
-            max_steps=max_steps, techniques=techniques,
+            techniques=techniques,
             start_pixel=my_start, band_pixels=band_pixels,
             mat_kinds=mat_kinds,
         )
@@ -464,7 +462,7 @@ _VCM_CARRY_KEYS = ("active", "d", "d_vc", "d_vcm", "d_vm", "org", "radiance",
 _VCM_SHARD_STATICS = (
     "mesh", "algo", "width", "height", "spp", "max_len", "light_path_count",
     "num_connections", "num_knn", "table_size", "max_per_cell", "has_masks",
-    "has_bump", "max_steps", "techniques", "mat_kinds", "bounces",
+    "has_bump", "techniques", "mat_kinds", "bounces",
 )
 
 
@@ -473,7 +471,7 @@ def _vcm_camera_phase1_sharded(scene, cam, frame, cache, grid, base_radius,
                                *, mesh, algo, width, height, spp, max_len,
                                light_path_count, num_connections, num_knn,
                                table_size, max_per_cell, has_masks, has_bump,
-                               max_steps, techniques, mat_kinds, bounces,
+                               techniques, mat_kinds, bounces,
                                band_pixels):
     """Whole-frame camera phase 1: every shard traces its local pixel
     bands for `bounces` camera bounces and compacts locally."""
@@ -494,7 +492,7 @@ def _vcm_camera_phase1_sharded(scene, cam, frame, cache, grid, base_radius,
             algo=algo, max_len=max_len, light_path_count=light_path_count,
             num_connections=num_connections, num_knn=num_knn,
             table_size=table_size, max_per_cell=max_per_cell,
-            has_bump=has_bump, alpha_fn=alpha_fn, max_steps=max_steps,
+            has_bump=has_bump, alpha_fn=alpha_fn,
             techniques=techniques, mat_kinds=mat_kinds)
         base = jax.lax.axis_index(RAY_AXIS) * pixels_local
         carries, pids = [], []
@@ -528,7 +526,7 @@ def _vcm_camera_phase2_sharded(scene, frame, cache, grid, base_radius, sc,
                                start, *, mesh, algo, width, height, spp,
                                max_len, light_path_count, num_connections,
                                num_knn, table_size, max_per_cell, has_masks,
-                               has_bump, max_steps, techniques, mat_kinds,
+                               has_bump, techniques, mat_kinds,
                                bounces, size):
     """Camera bounces [bounces, max_len) on local rows [start, start+size)
     of every shard's compacted carry, written back in place."""
@@ -545,7 +543,7 @@ def _vcm_camera_phase2_sharded(scene, frame, cache, grid, base_radius, sc,
             algo=algo, max_len=max_len, light_path_count=light_path_count,
             num_connections=num_connections, num_knn=num_knn,
             table_size=table_size, max_per_cell=max_per_cell,
-            has_bump=has_bump, alpha_fn=alpha_fn, max_steps=max_steps,
+            has_bump=has_bump, alpha_fn=alpha_fn,
             techniques=techniques, mat_kinds=mat_kinds)
         ck = jax.tree_util.tree_map(
             lambda a: jax.lax.dynamic_slice_in_dim(a, start, size, 0), sc)
@@ -616,9 +614,7 @@ def render_vcm_frame_sharded(
     max_per_cell: int = 4,
     has_masks: bool = False,
     has_bump: bool = False,
-    max_steps: int = 0,
     techniques=None,
-    merge_kernel: bool = None,
     mat_kinds: tuple = None,
 ):
     """Multi-chip VCM-family frame (drop-in for
@@ -631,15 +627,13 @@ def render_vcm_frame_sharded(
     if techniques is None:
         techniques = TECHNIQUES
     assert algo in ALGOS
-    if merge_kernel is None:
-        merge_kernel = jax.default_backend() == "tpu"
     n_dev = mesh.devices.size
     frame = jnp.asarray(frame, jnp.uint32)
     base_radius = jnp.asarray(base_radius, jnp.float32)
     num_pixels = width * height
     if light_path_count <= 0:
         light_path_count = num_pixels // 2
-    from ..render.integrators.vcm import _per_path_cap, auto_cache_capacity
+    from ..render.integrators.vcm import auto_cache_capacity
 
     if cache_capacity <= 0:
         cache_capacity = auto_cache_capacity(light_path_count, max_len)
@@ -663,9 +657,7 @@ def render_vcm_frame_sharded(
             )
         # Per-device band, global stride n_dev * band: the shard split of
         # the path index space equals the single-chip band split.
-        from ..render.integrators.vcm import band_rays
-
-        band = min(band_rays(has_masks), light_path_count // n_dev)
+        band = min(VCM_BAND_RAYS, light_path_count // n_dev)
         stride = band * n_dev
         # Collect-then-select (single-chip render_vcm_frame, same
         # constants): every vertex lands in a full-size transport cache
@@ -688,7 +680,7 @@ def render_vcm_frame_sharded(
                 mesh=mesh, algo=algo, num_pixels=num_pixels,
                 light_path_count=light_path_count, max_len=max_len,
                 local_capacity=local_cap, has_masks=has_masks,
-                has_bump=has_bump, max_steps=max_steps,
+                has_bump=has_bump,
                 techniques=techniques, band_paths=bp,
             )
             film = film + light_film
@@ -704,13 +696,10 @@ def render_vcm_frame_sharded(
                 cache, frame, base_radius, table_size=table_size,
                 cache_capacity=cache_capacity,
                 light_path_count=light_path_count, algo=algo,
-                use_kernel=merge_kernel,
             )
 
     if algo != "lt":
-        from ..render.integrators.vcm import band_rays
-
-        band = min(band_rays(has_masks) // max(spp, 1),
+        band = min(VCM_BAND_RAYS // max(spp, 1),
                    max(num_pixels // n_dev, 1))
         from ..render.integrators.vcm import _use_vcm_compact
 
@@ -724,7 +713,7 @@ def render_vcm_frame_sharded(
                 light_path_count=light_path_count,
                 num_connections=num_connections, num_knn=num_knn,
                 table_size=table_size, max_per_cell=max_per_cell,
-                has_masks=has_masks, has_bump=has_bump, max_steps=max_steps,
+                has_masks=has_masks, has_bump=has_bump,
                 techniques=techniques, mat_kinds=mat_kinds)
         parts = []
         # Sharded bands cover exactly bp * n_dev pixels; the final
@@ -741,7 +730,7 @@ def render_vcm_frame_sharded(
                 light_path_count=light_path_count,
                 num_connections=num_connections, num_knn=num_knn,
                 table_size=table_size, max_per_cell=max_per_cell,
-                has_masks=has_masks, has_bump=has_bump, max_steps=max_steps,
+                has_masks=has_masks, has_bump=has_bump,
                 techniques=techniques, band_pixels=bp, mat_kinds=mat_kinds,
             ))
             start += bp * n_dev
@@ -754,7 +743,7 @@ def render_vcm_frame_sharded(
                 light_path_count=light_path_count,
                 num_connections=num_connections, num_knn=num_knn,
                 table_size=table_size, max_per_cell=max_per_cell,
-                has_masks=has_masks, has_bump=has_bump, max_steps=max_steps,
+                has_masks=has_masks, has_bump=has_bump,
                 techniques=techniques, start_pixel=jnp.int32(start),
                 band_pixels=num_pixels - start, mat_kinds=mat_kinds,
             ))

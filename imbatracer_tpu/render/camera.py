@@ -22,22 +22,22 @@ cheaper and exact under jit.
 
 from __future__ import annotations
 
-import flax.struct
+from ..core import pytree
 import jax.numpy as jnp
 import numpy as np
 
 from ..core.vecmath import dot, normalize
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class Camera:
     pos: jnp.ndarray        # (3,)
     forward: jnp.ndarray    # (3,) unit
     right: jnp.ndarray      # (3,) unit
     down: jnp.ndarray       # (3,) unit
     img_plane_dist: jnp.ndarray  # scalar, pixel units
-    width: int = flax.struct.field(pytree_node=False)
-    height: int = flax.struct.field(pytree_node=False)
+    width: int = pytree.static_field()
+    height: int = pytree.static_field()
 
 
 def make_camera(pos, direction, up, width: int, height: int, fov_deg: float) -> Camera:

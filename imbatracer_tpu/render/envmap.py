@@ -16,7 +16,7 @@ pdf conversion: p(w) = p(s,t) / (2 pi^2 sin(theta)).
 
 from __future__ import annotations
 
-import flax.struct
+from ..core import pytree
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,7 +25,7 @@ from ..core.sampling import PI, concentric_disc_pdf
 from ..core.vecmath import luminance
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class EnvMapData:
     img: jnp.ndarray           # (H, W, 3) radiance, intensity pre-multiplied
     pdf_table: jnp.ndarray     # (H, W) density over unit (s, t) square

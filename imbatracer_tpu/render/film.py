@@ -1,7 +1,7 @@
 """Film accumulation and tone mapping.
 
 The reference accumulates with per-pixel CAS loops into an AtomicImage
-(reference: core/atomic_vector.h:10-75, integrator.h:44-47); on TPU the
+(reference: core/atomic_vector.h:10-75, integrator.h:44-47); here the
 same operation is a deterministic `segment_sum` over pixel ids — no
 atomics, no races, bitwise reproducible.
 """

@@ -1,20 +1,14 @@
-"""Fixed-radius kNN hash grid, built with sort + searchsorted (device-side).
+"""Fixed-radius photon hash grid, built with sort + searchsorted (device-side).
 
 The reference builds a 3D hash grid with an atomic counting sort and
 answers queries with per-photon insertion sort
-(reference: rangesearch/rangesearch.h:24-129).  The TPU formulation is
-fully data-parallel: photons are sorted by hashed cell id, per-cell ranges
+(reference: rangesearch/rangesearch.h:24-129).  Here the build is fully
+data-parallel: photons are sorted by hashed cell id, per-cell ranges
 come from one `searchsorted`, and a query examines the same 8 neighbour
 cells (2x2x2 block chosen by the fractional cell coordinate,
-rangesearch.h:90-97) through fixed-size windows.
-
-TPU-specific structure:
-- photons are stored as (P, 8) wide records [x y z idx_bits ...] so each
-  candidate batch is ONE wide-row gather (narrow (N,3) gathers are slow);
-- the best-k set is merged cell-by-cell with a small (R, k+W) lax.sort
-  instead of concatenating all 8 windows (a (R, 128)-candidate
-  materialisation at 1M rays was enough to take down the device at
-  1080p-scale VCM).
+rangesearch.h:90-97) through fixed-size windows.  Photons are stored as
+wide records [x y z idx_bits payload...], so each candidate window is one
+row gather.
 
 Hash collisions only add candidates that the radius filter rejects, as in
 the reference (same 73856093/19349663/83492791 hash, rangesearch.h:137-140).
@@ -24,12 +18,13 @@ from __future__ import annotations
 
 from functools import partial
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 
+from ..core import pytree
 
-@flax.struct.dataclass
+
+@pytree.dataclass
 class HashGrid:
     sorted_rec: jnp.ndarray   # (P, 8) [x y z idx_bits 0 0 0 0] in cell order
     cell_start: jnp.ndarray   # (C + 1,) range boundaries per cell id
@@ -106,8 +101,7 @@ def cell_windows(grid: HashGrid, qpos, max_per_cell: int):
     in-range-and-in-radius mask, scale (R,) truncation compensation).
     One wide row gather per cell, no sorting — the fixed-radius
     formulation (the reference's range search, rangesearch.h:90-129; the
-    kNN variant query_knn adds per-row top-k sorts that measure
-    ~50-100 ms each at 262k queries).
+    kNN variant query_knn adds per-row top-k sorts).
 
     `scale` = cell_count / min(cell_count, W): the reference walks every
     photon in the cell; the window keeps the first W, so scaling the
@@ -115,8 +109,8 @@ def cell_windows(grid: HashGrid, qpos, max_per_cell: int):
     photons are an arbitrary-but-position-independent subset).
 
     Known approximations of the windowed form (both are exact in the
-    reference's unbounded walk, and in the TPU Pallas merge kernel,
-    ops/pallas_merge.py, which walks every photon in the cell run):
+    reference's unbounded walk; tests/test_merge_exact.py compares the
+    two):
     - `cell_count` is the HASH-BUCKET population, which can include
       photons from hash-collided unrelated cells; in a collided bucket
       the in-radius photons inside the first-W window get scaled by an
@@ -125,8 +119,7 @@ def cell_windows(grid: HashGrid, qpos, max_per_cell: int):
     - the kept subset is the deterministic bucket prefix, not a random
       sample; the expectation argument assumes photon contributions are
       exchangeable within a cell, which weight-varying photons only
-      approximately are.  Validated against the exact walk at image
-      level (tests/test_pallas_merge.py, scripts/profile_vcm.py)."""
+      approximately are."""
     cellf = (qpos - grid.bbox_min) * grid.inv_cell
     coord = jnp.floor(cellf)
     fract = cellf - coord
@@ -144,11 +137,8 @@ def cell_windows(grid: HashGrid, qpos, max_per_cell: int):
         end = grid.cell_start[h + 1]
         idx2d = start[:, None] + ar[None, :]
         in_range = idx2d < end[:, None]
-        # Flat 1-D row-index gather (equivalent to the 2-D-batched form;
-        # measured identical — XLA canonicalises both.  The window
-        # machinery costs ~22 ms/cell at 262k queries, ~6x the
-        # traversal-record row-gather rate; a Pallas per-cell-DMA merge
-        # is the round-3 path past this).
+        # Flat 1-D row-index gather (XLA canonicalises it and the
+        # 2-D-batched form alike).
         flat = jnp.where(in_range, idx2d, 0).reshape(-1)
         rec = grid.sorted_rec[flat].reshape(
             idx2d.shape[0], idx2d.shape[1], grid.sorted_rec.shape[1]

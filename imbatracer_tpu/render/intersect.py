@@ -54,6 +54,46 @@ def safe_inv_dir(d, eps=1e-12):
     return s / jnp.maximum(jnp.abs(d), eps)
 
 
+def ray_triangle_xyz(o, d, v0, e1, e2, tmin, tmax):
+    """Moller-Trumbore on component triples (each an (x, y, z) tuple of
+    same-shape arrays), the form both traversal routes use.  Returns
+    (t, u, v, hit)."""
+    (ox, oy, oz), (dx, dy, dz) = o, d
+    (v0x, v0y, v0z), (e1x, e1y, e1z), (e2x, e2y, e2z) = v0, e1, e2
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    inv_det = jnp.where(jnp.abs(det) < 1e-12, 0.0, 1.0 / det)
+    tx, ty, tz = ox - v0x, oy - v0y, oz - v0z
+    u = (tx * px + ty * py + tz * pz) * inv_det
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    v = (dx * qx + dy * qy + dz * qz) * inv_det
+    t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+    hit = ((inv_det != 0.0) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+           & (t > tmin) & (t < tmax))
+    return t, u, v, hit
+
+
+def ray_aabb_xyz(o, inv_d, lo, hi, tmin, tmax):
+    """Slab test on component triples; the box-hit mask."""
+    (ox, oy, oz), (ix, iy, iz) = o, inv_d
+    tx0, tx1 = (lo[0] - ox) * ix, (hi[0] - ox) * ix
+    ty0, ty1 = (lo[1] - oy) * iy, (hi[1] - oy) * iy
+    tz0, tz1 = (lo[2] - oz) * iz, (hi[2] - oz) * iz
+    t_near = jnp.maximum(
+        jnp.maximum(jnp.minimum(tx0, tx1), jnp.minimum(ty0, ty1)),
+        jnp.minimum(tz0, tz1),
+    )
+    t_far = jnp.minimum(
+        jnp.minimum(jnp.maximum(tx0, tx1), jnp.maximum(ty0, ty1)),
+        jnp.maximum(tz0, tz1),
+    )
+    return (t_near <= t_far) & (t_far >= tmin) & (t_near <= tmax)
+
+
 def brute_force_closest_hit(org, d, v0, e1, e2, tmin=0.0, tmax=BIG, chunk=512):
     """Reference intersector: tests every ray against every triangle.
 

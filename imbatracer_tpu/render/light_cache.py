@@ -18,12 +18,12 @@ from __future__ import annotations
 
 from functools import partial
 
-import flax.struct
+from ..core import pytree
 import jax
 import jax.numpy as jnp
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class LightVertexCache:
     pos: jnp.ndarray         # (C, 3)
     w_out: jnp.ndarray       # (C, 3) direction toward the previous vertex
@@ -50,7 +50,7 @@ class LightVertexCache:
          dVM(20), path_length(21, i32 bits), path_id(22, i32 bits),
          pad(23)].
         One gather per vertex access in connect/merge instead of ~8
-        narrow ones (each dynamic gather costs ~3.3 ms/1M lanes flat)."""
+        narrow ones."""
         import jax.lax
 
         bits = lambda a: jax.lax.bitcast_convert_type(a, jnp.float32)
@@ -116,8 +116,7 @@ def append_packed(cache: LightVertexCache, valid,
 
     The light pass LOGS one record slab per bounce inside its fori_loop
     (dynamic_update_slice, aliased in place) and calls this ONCE after
-    the loop: a scatter inside a fori body de-vectorises (~13 ms/step
-    measured, CLAUDE.md), one big scatter runs at memory speed.
+    the loop: one big scatter instead of one inside every fori step.
     """
     import jax.lax
 

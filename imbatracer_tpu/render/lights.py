@@ -13,7 +13,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
-import flax.struct
+from ..core import pytree
 import jax.numpy as jnp
 import numpy as np
 
@@ -43,12 +43,12 @@ LIGHT_ENV = 4
 FAR = jnp.float32(1e30)
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class LightTable:
     """SoA light storage.
 
     `rec` is the wide-record per-light view used by per-ray gathers (one
-    (R, 24) row gather; see accel/flatten.py for the TPU rationale):
+    (R, 24) row gather):
       [kind(0, i32 bits), p0(1:4), p1(4:7), p2(7:10), normal(10:13),
        intensity(13:16), area(16), cos_angle(17), pad(18:24)]
     """
@@ -68,7 +68,7 @@ class LightTable:
         return self.kind.shape[0]
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class BSphere:
     center: jnp.ndarray    # (3,)
     radius: jnp.ndarray    # ()
@@ -111,11 +111,9 @@ UNROLL_LIGHTS = 8
 
 def _fetch_rows(table_rec, li):
     """Per-ray light-record fetch, TRANSPOSED to (24, R).  For small tables
-    a select-chain over static rows replaces the dynamic gather (a gather
-    costs a flat ~3.3 ms per 1M rays on this TPU; 8 selects are ~free);
-    either way the result is component-major so the ~18 component reads
-    below are contiguous row slices, not cross-lane column extracts
-    (measured ~6x difference)."""
+    a select-chain over static rows replaces the dynamic gather; either
+    way the result is component-major so the ~18 component reads below
+    are contiguous row slices, not cross-lane column extracts."""
     L = table_rec.shape[0]
     if L <= UNROLL_LIGHTS:
         rec_t = jnp.broadcast_to(table_rec[0][:, None], (table_rec.shape[1],) + li.shape)

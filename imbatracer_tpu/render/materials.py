@@ -2,7 +2,7 @@
 
 The reference dispatches through virtual BxDF objects placement-allocated in
 per-thread arenas (reference: render/materials/materials.h,
-bsdf.h:118-199, brdfs.h, btdfs.h, fresnel.h).  On TPU there is no dispatch:
+bsdf.h:118-199, brdfs.h, btdfs.h, fresnel.h).  Here there is no dispatch:
 materials live in an SoA table, every kind's math is evaluated for every
 lane and the result selected by the kind id — four cheap formula blocks vs.
 a gather-scatter of control flow.
@@ -41,7 +41,7 @@ All directions are in world space; `wo` points away from the surface.
 
 from __future__ import annotations
 
-import flax.struct
+from ..core import pytree
 import jax.numpy as jnp
 
 from ..core.sampling import (
@@ -63,7 +63,7 @@ MAT_PHONG = 4
 MAT_OREN_NAYAR = 5
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class MaterialTable:
     """SoA material storage; one row per scene material.
 
@@ -128,7 +128,7 @@ def is_specular(p: MatParams) -> jnp.ndarray:
 # evaluate every kind, the previous behaviour.  With a non-empty tuple the
 # absent kinds' formula blocks are never traced, which deletes their
 # transcendental chains (Blinn/Phong powers, glass Fresnel) from the
-# compiled program — the TPU analogue of the reference compiling one
+# compiled program — the analogue of the reference compiling one
 # kernel per material via AnyDSL specialisation (materials.h's
 # per-material BxDF instantiation).  Results are BITWISE identical for
 # every lane whose kind is in `kinds` (each select chain yields exactly

@@ -1,17 +1,16 @@
 """Surface interaction assembly from traversal hits (batched gathers).
 
 Replaces `calculate_intersection` (reference: render/integrators/
-integrator.h:71-123).  Differences from the reference are wins of the
-TPU data layout: barycentric v comes straight from the traversal kernel
+integrator.h:71-123).  Differences from the reference come from the
+data layout: barycentric v comes straight from the traversal kernel
 (the reference reconstructs it from the hit position, integrator.h:88-94),
 and instancing is pre-flattened so no inverse-transform is needed at
 shading time.
 
 Performance: the entire shading step needs exactly ONE wide-record gather
 (TriAttrs.shade_rec joins triangle attributes, the material row and the
-emitter data at build time) — a dynamic gather costs a flat ~3.3 ms per
-1M rays on this TPU, so gather count is the budget that matters.  Texture
-lookups are statically skipped for texture-free scenes.
+emitter data at build time).  Texture lookups are statically skipped for
+texture-free scenes.
 
 Conventions preserved:
 - attribute lerp weights (1-u-v, u, v)
@@ -30,7 +29,6 @@ import jax.numpy as jnp
 
 from ..core.sampling import local_coordinates
 from ..core.vecmath import dot, normalize
-from ..ops.take import take_rows_t
 from ..scene.textures import sample_bilinear
 from . import materials as mat_mod
 from .traverse import Hit
@@ -54,14 +52,12 @@ def make_interaction(scene, hit: Hit, org, d, has_bump: bool = False) -> Surface
     `hit.prim_id` < 0 rows produce garbage that callers must mask."""
     prim = jnp.maximum(hit.prim_id, 0)
     # One logical fetch, transposed once: row slices of (C, R) are
-    # contiguous (column extracts of (R, C) are cross-lane shuffles,
-    # ~6x slower).  take_rows_t routes small tables to gather-free
-    # bit-exact forms (select chain / one-hot MXU) under IMBA_TAKE.
+    # contiguous (column extracts of (R, C) are cross-lane shuffles).
     # The record holds only the statically-consumable column subset
     # (scene/types.py::shade_columns); `cpos` maps canonical column ids
     # to stored positions, and absent columns read as cheap lane-varying
     # zeros / -1 ids (their consumers are statically absent too).
-    rec_t = take_rows_t(scene.attrs.shade_rec, prim)
+    rec_t = scene.attrs.shade_rec[prim].T
     cpos = {c: i for i, c in enumerate(scene.attrs.shade_cols)}
     zero1 = hit.t * 0.0
 

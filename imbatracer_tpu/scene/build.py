@@ -35,11 +35,11 @@ from ..io.scene_file import SceneDesc, parse_scene_file
 from ..render import materials as mat_mod
 from ..render import lights as light_mod
 from ..render.envmap import build_envmap
+from ..utils.cache import accel_cache_dir
 from ..utils.log import logger
 from .textures import pack_textures
 from .types import DeviceScene, SceneMeta, TriAttrs, shade_columns
 
-import flax.struct  # noqa: E402  (jnp conversion at the end)
 import jax.numpy as jnp  # noqa: E402
 
 
@@ -299,11 +299,9 @@ def _scene_lights(desc: SceneDesc):
 
 
 def build_scene(scene_path: str, quiet: bool = False,
-                spatial: bool = False, force_flatten: bool = False):
+                spatial: bool = False):
     """Load + build everything. Returns (DeviceScene, SceneMeta).
-
-    `force_flatten`: skip two-level instancing even when eligible
-    (self-check tooling renders both routes and compares images)."""
+    Instances are flattened to world space."""
     t_start = time.time()
     desc = parse_scene_file(scene_path)
 
@@ -345,7 +343,7 @@ def build_scene(scene_path: str, quiet: bool = False,
     ]
     cache_key = bvh_cache.fingerprint(mesh_files + [scene_path])
     cache_file = ""
-    cache_dir = os.environ.get("IMBATRACER_CACHE_DIR", "/tmp/imbatracer_accel")
+    cache_dir = accel_cache_dir()
     try:
         os.makedirs(cache_dir, exist_ok=True)
         cache_file = os.path.join(
@@ -354,37 +352,9 @@ def build_scene(scene_path: str, quiet: bool = False,
     except OSError:
         pass
 
-    # Two-level instancing: when instances multiply the geometry, keep ONE
-    # mesh-space tile set per mesh and traverse through per-super-chunk
-    # instance transforms (reference: core/adapter.h TopLevelAdapter;
-    # here accel/instancing.py).  Shading attrs stay flat per instance.
-    two_level = None
-    unique_tris = sum(len(m.tris) for m in meshes)
-    import jax as _jax
-
-    if (not force_flatten and _jax.default_backend() == "tpu"
-            and len(desc.instances) > 1
-            and num_tris > 1024 and num_tris >= 2 * unique_tris):
-        face_base = 0
-        inst_list = []
-        for inst in desc.instances:
-            m4 = math3d.instance_matrix(inst.pos, inst.scale, inst.rot)
-            inst_list.append(dict(mesh_idx=inst.mesh_idx, matrix=m4,
-                                  face_base=face_base))
-            face_base += len(meshes[inst.mesh_idx].tris)
-        mesh_tris = [
-            (m.verts[m.tris[:, 0]], m.verts[m.tris[:, 1]],
-             m.verts[m.tris[:, 2]])
-            for m in meshes
-        ]
-        two_level = (mesh_tris, inst_list)
-        logger.info("two-level instancing: %d instances, %d unique tris "
-                    "(%d flat)", len(inst_list), unique_tris, num_tris)
-
     device_scene = assemble_device_scene(
         v0, v1, v2, attrs, conv.rows, light_rows, conv.textures, env,
-        cache_file=cache_file, cache_key=cache_key, two_level=two_level,
-        spatial=spatial,
+        cache_file=cache_file, cache_key=cache_key, spatial=spatial,
     )
     has_masks = any(m["mask_tex"] >= 0 for m in conv.rows)
     has_bump = any(m["bump_tex"] >= 0 for m in conv.rows)
@@ -414,7 +384,7 @@ def _geom_normals(v0, v1, v2):
 
 def assemble_device_scene(v0, v1, v2, attrs, mat_rows, light_rows, textures, env,
                           cache_file: str = "", cache_key: str = "",
-                          two_level=None, spatial: bool = False):
+                          spatial: bool = False):
     """Shared tail of scene construction: BVH build + device upload.
 
     Used by both the file-based builder and procedural scenes
@@ -430,18 +400,7 @@ def assemble_device_scene(v0, v1, v2, attrs, mat_rows, light_rows, textures, env
     radius = float(np.linalg.norm(hi - center)) + 1e-6
 
     threaded = None
-    two_level_bvh = None
-    if two_level is not None:
-        from ..accel.instancing import build_two_level
-
-        t_bvh = time.time()
-        mesh_tris, inst_list = two_level
-        tl = build_two_level(mesh_tris, inst_list)
-        two_level_bvh = DeviceBvh.from_two_level(tl)
-        bvh_stats = dict(tl.stats)
-        logger.info("two-level BVH: %s in %.2fs", bvh_stats,
-                    time.time() - t_bvh)
-    elif cache_file:
+    if cache_file:
         from ..io import bvh_cache
 
         if spatial:
@@ -449,7 +408,7 @@ def assemble_device_scene(v0, v1, v2, attrs, mat_rows, light_rows, textures, env
         threaded = bvh_cache.load_accel(cache_file, cache_key)
         if threaded is not None:
             logger.info("BVH loaded from cache: %s", threaded.stats)
-    if threaded is None and two_level_bvh is None:
+    if threaded is None:
         t_bvh = time.time()
         blo, bhi = triangle_bboxes(v0, v1, v2)
         if spatial:
@@ -519,8 +478,7 @@ def assemble_device_scene(v0, v1, v2, attrs, mat_rows, light_rows, textures, env
     attr_rec[:, 21] = attrs["local_id"].astype(np.int32).view(np.float32)
 
     # Combined shade record: triangle attributes JOINED with the material
-    # row and per-face emitter data, so a hit needs exactly ONE gather
-    # (each dynamic gather costs a flat ~3.3 ms per 1M rays on this TPU).
+    # row and per-face emitter data, so a hit needs exactly ONE gather.
     # Layout documented at scene/types.py TriAttrs.shade_rec.
     mid = attrs["mat_id"]
     lid = attrs["light_id"]
@@ -580,13 +538,10 @@ def assemble_device_scene(v0, v1, v2, attrs, mat_rows, light_rows, textures, env
         mask_rec[:, 6:8] = attrs["uv1"]
         mask_rec[:, 8:10] = attrs["uv2"]
 
-    if two_level_bvh is None:
-        bvh_stats = threaded.stats
     scene = DeviceScene(
         mat_kinds=mat_kinds,
         light_kinds=light_kinds,
-        bvh=(two_level_bvh if two_level_bvh is not None
-             else DeviceBvh.from_threaded(threaded)),
+        bvh=DeviceBvh.from_threaded(threaded),
         attrs=TriAttrs(
             rec=jnp.asarray(attr_rec),
             shade_rec=jnp.asarray(shade_rec),
@@ -611,5 +566,5 @@ def assemble_device_scene(v0, v1, v2, attrs, mat_rows, light_rows, textures, env
         ),
         env=env,
     )
-    object.__setattr__(scene, "bvh_stats", bvh_stats)
+    object.__setattr__(scene, "bvh_stats", threaded.stats)
     return scene

@@ -1,7 +1,7 @@
 """Texture atlas: all scene textures packed into one flat texel buffer.
 
 The reference keeps one `TextureSampler` object per texture with virtual
-lookups (reference: render/texture_sampler.h:11-47).  On TPU all textures
+lookups (reference: render/texture_sampler.h:11-47).  Here all textures
 live in a single (T, 3) texel array plus per-texture descriptors
 (offset/width/height — the same trick the reference uses for its packed
 `MaskBuffer`, core/mask.h:29-40), so a batch of rays with *different*
@@ -13,12 +13,12 @@ v flipped, bilinear over a (w-1, h-1) grid with wrap-around top neighbour.
 
 from __future__ import annotations
 
-import flax.struct
+from ..core import pytree
 import jax.numpy as jnp
 import numpy as np
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class TextureAtlas:
     texels: jnp.ndarray  # (T, 3) f32
     offset: jnp.ndarray  # (K,) i32

@@ -3,8 +3,8 @@
 Replaces the reference's `Scene` object (reference: render/scene.h:29-141)
 — its mesh/instance/material/light containers and `anydsl::Array` device
 buffers — with flat jnp arrays.  Instances are resolved at build time into
-world-space triangles (the TPU answer to two-level instanced traversal:
-regular data instead of per-ray transform indirection; the per-triangle
+world-space triangles (regular data instead of per-ray transform
+indirection; the per-triangle
 `inst_id`/`local_tri_id` mapping the reference reconstructs at shading
 time, scene.h:81-83, is kept as explicit arrays).
 """
@@ -14,7 +14,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional
 
-import flax.struct
+from ..core import pytree
 import jax.numpy as jnp
 
 from ..accel.device import DeviceBvh
@@ -24,13 +24,12 @@ from ..render.materials import MaterialTable
 from .textures import TextureAtlas
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class TriAttrs:
     """Per flat (world-space) triangle shading attributes.
 
     `rec` is the wide-record view read by the hot path (one fast (R, 24)
-    gather per hit instead of ~10 narrow ones — see accel/flatten.py for
-    the TPU gather-width rationale):
+    gather per hit instead of ~10 narrow ones):
       [n0(0:3), n1(3:6), n2(6:9), gn(9:12), uv0(12:14), uv1(14:16),
        uv2(16:18), mat_id(18, i32 bits), light_id(19, i32 bits),
        inst_id(20, i32 bits), local_id(21, i32 bits), pad(22:24)]
@@ -62,28 +61,26 @@ class TriAttrs:
     inst_id: jnp.ndarray  # (F,) i32 source instance
     local_id: jnp.ndarray  # (F,) i32 triangle id within the source mesh
     # Narrow per-triangle mask record for alpha-masked traversal, or None
-    # for mask-free scenes.  The masked re-trace alpha-tests MILLIONS of
-    # candidate hits per frame and each test used to chain ~6 dependent
-    # gathers (22-col shade row -> material row -> 3 atlas-geometry rows
-    # -> texel); gathers are the flat ~3.3 ms/M-lane cost on this chip,
-    # so the chain is pre-joined at build into ONE row per triangle:
+    # for mask-free scenes.  Masked traversal alpha-tests every candidate
+    # hit, and each test would otherwise chain ~6 dependent gathers
+    # (22-col shade row -> material row -> 3 atlas-geometry rows ->
+    # texel), so the chain is pre-joined at build into ONE row per
+    # triangle:
     #   [mask_tex(0, i32 bits), atlas w(1)/h(2)/offset(3, i32 bits),
     #    uv0(4:6), uv1(6:8), uv2(8:10)]
     # alpha tests become exactly two gathers (row + texel).
     mask_rec: Optional[jnp.ndarray] = None  # (F, 10) f32
     # Static (pytree-aux): canonical shade_rec column ids actually stored,
     # in order (see the shade_rec comment above).
-    shade_cols: tuple = flax.struct.field(
-        pytree_node=False, default=tuple(range(48)))
+    shade_cols: tuple = pytree.static_field(default=tuple(range(48)))
 
 
 def shade_columns(mat_kinds: tuple, has_textures: bool, has_bump: bool,
                   has_masks: bool) -> tuple:
     """Static shade_rec column subset the shading step can consume.
 
-    The one-hot-matmul record fetch (ops/take.py, the auto tier for small
-    tables) pays per COLUMN — two HIGHEST f32 dots of width 2*len(cols) —
-    so columns no consumer can read are pure cost.  Unconditionally dead:
+    The per-hit record gather moves every stored COLUMN, so columns no
+    consumer can read are pure cost.  Unconditionally dead:
     inst/local ids (20, 21; kept in TriAttrs.rec for tooling) and the pad
     (41:47).  Conditionally dead, keyed on the same static facts that
     drive kind specialization: uv + texture ids without textures, ks/tf/
@@ -119,7 +116,7 @@ def shade_columns(mat_kinds: tuple, has_textures: bool, has_bump: bool,
     return tuple(cols)
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class DeviceScene:
     bvh: DeviceBvh
     attrs: TriAttrs
@@ -131,11 +128,11 @@ class DeviceScene:
     # Static (pytree-aux) per-scene specialization facts: the sets of
     # material / light kinds present, as sorted tuples.  Hot paths pass
     # them to materials/lights entry points so XLA never traces formula
-    # blocks for kinds the scene doesn't contain (the TPU analogue of the
+    # blocks for kinds the scene doesn't contain (the analogue of the
     # reference's per-material AnyDSL kernel specialization).  `()` means
     # "unknown — compile everything" (always correct).
-    mat_kinds: tuple = flax.struct.field(pytree_node=False, default=())
-    light_kinds: tuple = flax.struct.field(pytree_node=False, default=())
+    mat_kinds: tuple = pytree.static_field(default=())
+    light_kinds: tuple = pytree.static_field(default=())
 
     @property
     def num_lights(self):

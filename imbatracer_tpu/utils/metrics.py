@@ -33,6 +33,6 @@ def psnr(a01: np.ndarray, b01: np.ndarray) -> float:
 
 def load_reference_png(path: str) -> np.ndarray:
     """Load a golden PNG as [0,1] RGB (already tone-mapped)."""
-    from PIL import Image
+    from ..io.image import load_png
 
-    return np.asarray(Image.open(path).convert("RGB"), np.float32) / 255.0
+    return load_png(path)[..., :3]

@@ -1,12 +1,12 @@
-"""Collective-count regression test (VERDICT r4 "missing #3"): the
+"""Collective-count regression test: the
 sharded schedule's collective structure is hardware-independent, so pin
 it — the docs/multichip.md census (1 film psum per PT band, 1 per VCM
 light band, ZERO camera-band collectives) must not silently grow.  A
 new collective here means a sharding regression that would ride
-ICI/DCN on real hardware.
+NVLink on real hardware.
 
 The counts target the per-band jitted programs exactly as they execute
-(scripts/profile_multichip.py method) — jitting the whole python
+— jitting the whole python
 orchestrator instead would hand the replicated host steps to GSPMD and
 count collectives the real schedule never runs."""
 
@@ -47,7 +47,7 @@ def test_pt_band_collectives(fixture):
     scene, cam, mesh, size = fixture
     f = partial(shard_mod._pt_band_sharded, width=size, height=size, spp=1,
                 max_len=3, has_masks=False, has_bump=False, mesh=mesh,
-                max_steps=0, with_stats=False,
+                with_stats=False,
                 band_pixels=size * size // 8)
     c = _counts(f, scene, cam, jnp.uint32(0), jnp.int32(0))
     # One film psum; nothing else moves between chips (scene
@@ -62,7 +62,7 @@ def test_vcm_light_band_collectives(fixture):
     f = partial(shard_mod._vcm_light_band_sharded, mesh=mesh, algo="vcm",
                 num_pixels=size * size, light_path_count=lpc, max_len=3,
                 local_capacity=2 * lpc // 8, has_masks=False,
-                has_bump=False, max_steps=0, techniques=TECHNIQUES,
+                has_bump=False, techniques=TECHNIQUES,
                 band_paths=lpc // 8)
     c = _counts(f, scene, cam, jnp.uint32(0), jnp.float32(0.05),
                 jnp.int32(0))
@@ -85,7 +85,7 @@ def test_vcm_camera_band_collectives(fixture):
                 width=size, height=size, spp=1, max_len=3,
                 light_path_count=lpc, num_connections=1, num_knn=10,
                 table_size=1024, max_per_cell=4, has_masks=False,
-                has_bump=False, max_steps=0, techniques=TECHNIQUES,
+                has_bump=False, techniques=TECHNIQUES,
                 band_pixels=size * size // 8)
     c = _counts(f, scene, cam, jnp.uint32(0), cache, grid,
                 jnp.float32(0.05), jnp.int32(0))

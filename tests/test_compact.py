@@ -236,9 +236,16 @@ def test_fused_frame_matches_banded(monkeypatch):
 def test_use_fused_frame_gating(monkeypatch):
     monkeypatch.setenv("IMBA_PT_FUSE", "1")
     monkeypatch.setenv("IMBA_PT_COMPACT", "0")
-    assert pt_mod.use_fused_frame(4, 10, "stream")
+    assert pt_mod.use_fused_frame(4, 10)
+    assert not pt_mod.use_fused_frame(1, 10)  # one band: nothing to fuse
     monkeypatch.setenv("IMBA_PT_COMPACT", "1")
-    assert not pt_mod.use_fused_frame(4, 10, "stream")  # compaction wins
+    assert not pt_mod.use_fused_frame(4, 10)  # compaction wins
     monkeypatch.setenv("IMBA_PT_FUSE", "0")
     monkeypatch.setenv("IMBA_PT_COMPACT", "0")
-    assert not pt_mod.use_fused_frame(4, 10, "dense")
+    assert not pt_mod.use_fused_frame(4, 10)
+    # Unset: the measured defaults, the same on every backend.
+    monkeypatch.delenv("IMBA_PT_FUSE")
+    monkeypatch.delenv("IMBA_PT_COMPACT")
+    assert pt_mod._use_compact(4, 10) == pt_mod.PT_COMPACT
+    assert pt_mod.use_fused_frame(4, 10) == (pt_mod.PT_FUSE
+                                             and not pt_mod.PT_COMPACT)

@@ -134,7 +134,7 @@ def test_light_pass_band_invariance():
     pm, evc, evm = _mis_constants(frame, br, lpc, "lt")
     kw = dict(algo="lt", num_pixels=size * size, light_path_count=lpc,
               max_len=3, cache_capacity=1024, has_masks=False,
-              has_bump=False, alpha_fn=None, max_steps=0,
+              has_bump=False, alpha_fn=None,
               techniques=TECHNIQUES)
     whole, _ = _light_pass(scene, cam, frame, pm, br, evc, evm,
                            path_start=0, band_paths=lpc,
@@ -185,3 +185,29 @@ def test_sharded_tail_handling():
         render_vcm_frame_sharded(
             scene, cam, jnp.uint32(0), r, mesh, algo="bpt", width=w,
             height=h, max_len=3, light_path_count=255, cache_capacity=4096)
+
+
+@pytest.mark.skipif(len(jax.devices()) < 2, reason="needs multiple devices")
+@pytest.mark.parametrize("algo", ["pt", "lt"])
+def test_sharded_film_without_psum_is_a_trace_error(algo, monkeypatch):
+    """shard_map's varying-axis typing stays on: a film returned as
+    replicated (out_specs=P()) without its psum must fail to trace, not
+    silently return one shard's partial film."""
+    from imbatracer_tpu.parallel.shard import (
+        make_mesh, render_pt_frame_sharded, render_vcm_frame_sharded)
+    from imbatracer_tpu.render.camera import make_camera
+
+    scene, meta = make_cornell_scene()
+    w, h = 9, 8  # a shape no other test compiles (no jit cache hit)
+    cam = make_camera(meta.cam_pos, meta.cam_dir, meta.cam_up, w, h, 60.0)
+    mesh = make_mesh(jax.devices()[:8])
+    monkeypatch.setattr(jax.lax, "psum", lambda x, axis_name: x)
+    with pytest.raises(ValueError, match="replicat"):
+        if algo == "pt":
+            render_pt_frame_sharded(scene, cam, jnp.uint32(0), w, h, mesh,
+                                    max_len=2)
+        else:
+            render_vcm_frame_sharded(
+                scene, cam, jnp.uint32(0), jnp.float32(0.05), mesh,
+                algo="lt", width=w, height=h, max_len=2,
+                light_path_count=64, cache_capacity=1024)

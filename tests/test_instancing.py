@@ -1,21 +1,20 @@
-"""Two-level instanced traversal vs the flattened single-level reference.
+"""Instanced geometry, flattened to world space at build time.
 
 The reference exercises its TopLevelAdapter/InstanceNode machinery with
 cornell_instances.scene (core/adapter.h:25-38, cpu_adapter.cpp:221-378);
-here the streaming kernel's instanced variant (per-super-chunk transforms,
-shared mesh tiles — accel/instancing.py) must produce identical hits to a
-world-space-flattened BVH."""
+here every instance's triangles are transformed to world space and share
+one BVH, so traversal over the instanced scene must agree with the
+brute-force intersector over the transformed triangles, with primitive
+ids numbered instance by instance."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
 from imbatracer_tpu.accel.builder import build_bvh, triangle_bboxes
 from imbatracer_tpu.accel.device import DeviceBvh
 from imbatracer_tpu.accel.flatten import thread_bvh
-from imbatracer_tpu.accel.instancing import build_two_level
 from imbatracer_tpu.core import math3d
-from imbatracer_tpu.render.intersect import BIG
+from imbatracer_tpu.render.intersect import BIG, brute_force_closest_hit
 from imbatracer_tpu.render.traverse import any_hit, closest_hit
 
 
@@ -43,53 +42,14 @@ def _instances():
     return [math3d.instance_matrix(s["pos"], s["scale"], s["rot"]) for s in specs]
 
 
-def _interp(fn):
-    import jax.experimental.pallas as pl
-    from imbatracer_tpu.ops import pallas_stream as ps
-
-    if jax.default_backend() != "cpu":
-        return fn()
-    orig = pl.pallas_call
-
-    def interp(*a, **k):
-        k.setdefault("interpret", True)
-        return orig(*a, **k)
-
-    pl.pallas_call = interp
-    ps.pl.pallas_call = interp
-    try:
-        return fn()
-    finally:
-        pl.pallas_call = orig
-        ps.pl.pallas_call = orig
-
-
-def test_two_level_matches_flattened():
+def test_flattened_instances_match_brute_force():
     v0, v1, v2 = _box_mesh()
     mats = _instances()
     f = v0.shape[0]
-
-    # Flattened single-level reference (world space).
-    wv0, wv1, wv2 = [], [], []
-    for m in mats:
-        wv0.append(math3d.transform_points(m, v0).astype(np.float32))
-        wv1.append(math3d.transform_points(m, v1).astype(np.float32))
-        wv2.append(math3d.transform_points(m, v2).astype(np.float32))
-    wv0, wv1, wv2 = map(np.concatenate, (wv0, wv1, wv2))
-    lo, hi = triangle_bboxes(wv0, wv1, wv2)
-    flat = DeviceBvh.from_threaded(
-        thread_bvh(build_bvh(lo, hi), wv0, wv1, wv2), mode="xla"
-    )
-
-    # Two-level: one shared mesh, 4 instances.
-    tl = build_two_level(
-        [(v0, v1, v2)],
-        [dict(mesh_idx=0, matrix=m, face_base=i * f)
-         for i, m in enumerate(mats)],
-    )
-    assert tl.stats["unique_tris"] == f
-    bvh2 = DeviceBvh.from_two_level(tl)
-    assert bvh2.mode == "stream2"
+    wv = [np.concatenate([math3d.transform_points(m, v).astype(np.float32)
+                          for m in mats]) for v in (v0, v1, v2)]
+    lo, hi = triangle_bboxes(*wv)
+    bvh = DeviceBvh.from_threaded(thread_bvh(build_bvh(lo, hi), *wv))
 
     rs = np.random.RandomState(11)
     n = 1024
@@ -97,19 +57,19 @@ def test_two_level_matches_flattened():
     d = jnp.asarray(rs.randn(n, 3), jnp.float32)
     d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
 
-    def run():
-        h2 = closest_hit(bvh2, org, d, 0.0, BIG)
-        hx = closest_hit(flat, org, d, 0.0, BIG)
-        # t agreement everywhere (ids may differ on exact-overlap seams).
-        np.testing.assert_allclose(
-            np.asarray(h2.t), np.asarray(hx.t), rtol=2e-4, atol=1e-5
-        )
-        same = np.asarray(h2.prim_id == hx.prim_id)
-        assert same.mean() > 0.995, f"id agreement {same.mean():.4f}"
+    hit = closest_hit(bvh, org, d, 0.0, BIG)
+    bt, bid, _, _ = brute_force_closest_hit(
+        org, d, jnp.asarray(wv[0]), jnp.asarray(wv[1] - wv[0]),
+        jnp.asarray(wv[2] - wv[0]))
+    got, want = np.asarray(hit.prim_id), np.asarray(bid)
+    np.testing.assert_array_equal(got >= 0, want >= 0)
+    m = want >= 0
+    np.testing.assert_allclose(np.asarray(hit.t)[m], np.asarray(bt)[m],
+                               rtol=2e-4, atol=1e-5)
+    # Ids may differ only on exact-overlap seams; the instance never does.
+    assert (got[m] == want[m]).mean() > 0.995
+    np.testing.assert_array_equal(got[m] // f, want[m] // f)
 
-        occ2 = any_hit(bvh2, org, d, 0.0, jnp.full((n,), 2.5))
-        occx = any_hit(flat, org, d, 0.0, jnp.full((n,), 2.5))
-        bad = int(jnp.sum(occ2 != occx))
-        assert bad <= 2, f"{bad} occlusion mismatches"
-
-    _interp(run)
+    occ = any_hit(bvh, org, d, 0.0, jnp.full((n,), 2.5))
+    np.testing.assert_array_equal(np.asarray(occ),
+                                  np.asarray((bid >= 0) & (bt < 2.5)))

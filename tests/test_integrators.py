@@ -83,11 +83,9 @@ def test_vcm_pt_matches_pt(cornell):
 
 
 def test_cache_capacity_admission_contract(cornell, monkeypatch):
-    """Round-5 cache contract (supersedes the round-4 no-truncation
-    assertion): the default 2x-lpc capacity BINDS via the per-path
-    admission cap — measured better on every tracked 30 s row
-    (vcm.auto_cache_capacity docstring, results/r5_q_*_cap2.csv) —
-    while IMBA_CACHE_CAP_MULT=5 restores probe-style keep-everything
+    """Cache contract: the default 2x-lpc capacity BINDS via the per-path
+    admission cap (vcm.auto_cache_capacity docstring) — while
+    IMBA_CACHE_CAP_MULT=5 restores probe-style keep-everything
     sizing (reference: light_vertices.cpp:15-129)."""
     import jax.numpy as jnp
 
@@ -110,7 +108,7 @@ def test_cache_capacity_admission_contract(cornell, monkeypatch):
             scene, cam, jnp.uint32(0), base_radius, jnp.int32(0), cache,
             algo="vcm", num_pixels=SIZE * SIZE, light_path_count=lpc,
             max_len=max_len, cache_capacity=collect_cap, has_masks=False,
-            has_bump=False, max_steps=0, techniques=vcm_mod.TECHNIQUES,
+            has_bump=False, techniques=vcm_mod.TECHNIQUES,
             band_paths=lpc)
         return cache
 

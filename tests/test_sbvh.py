@@ -48,10 +48,9 @@ def test_sbvh_traversal_matches_object_bvh():
     verts = _thin_tri_scene(n=600, seed=3)
     v0, v1, v2 = verts[:, 0], verts[:, 1], verts[:, 2]
     lo, hi = triangle_bboxes(v0, v1, v2)
-    obj = DeviceBvh.from_threaded(thread_bvh(build_bvh(lo, hi), v0, v1, v2),
-                                  mode="xla")
+    obj = DeviceBvh.from_threaded(thread_bvh(build_bvh(lo, hi), v0, v1, v2))
     spn = build_sbvh(lo, hi, verts, ref_budget=3.0)
-    sp = DeviceBvh.from_threaded(thread_bvh(spn, v0, v1, v2), mode="xla")
+    sp = DeviceBvh.from_threaded(thread_bvh(spn, v0, v1, v2))
 
     rs = np.random.RandomState(11)
     n = 2048
@@ -92,8 +91,8 @@ def test_native_sbvh_matches_quality():
             seen[ids] += 1
     assert (seen >= 1).all()
 
-    dev = DeviceBvh.from_threaded(thread_bvh(spn, v0, v1, v2), mode="xla")
-    ref = DeviceBvh.from_threaded(thread_bvh(obj, v0, v1, v2), mode="xla")
+    dev = DeviceBvh.from_threaded(thread_bvh(spn, v0, v1, v2))
+    ref = DeviceBvh.from_threaded(thread_bvh(obj, v0, v1, v2))
     rs = np.random.RandomState(2)
     n = 1024
     org = jnp.asarray(rs.rand(n, 3).astype(np.float32) * 14 - 2)

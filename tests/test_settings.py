@@ -1,9 +1,8 @@
 """RenderSettings.resolved_light_path_count policy (frontend/renderer.py).
 
 The default light-path count follows the reference (w*h/2,
-cmd_line.h:237-239) but is capped per algorithm family on TPU frames —
-2^16 for merge-free BPT/LT, 2^17 for merging VCM/PPM — per the measured
-quality/speed tradeoff (results/r4_lpc_quality.csv, r4_lpc_sweep_*.csv).
+cmd_line.h:237-239) but is capped per algorithm family — 2^16 for
+merge-free BPT/LT, 2^17 for merging VCM/PPM — a quality/speed tradeoff.
 An explicit --light-path-count always wins; IMBA_VCM_LPC_CAP overrides
 the cap.
 """

@@ -37,9 +37,6 @@ def test_defer_matches_per_bounce(monkeypatch):
     assert np.isfinite(b).all()
     assert float(np.abs(a).sum()) > 0.0
     np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
-    # Mode 2: one global octant sort over the batch, per-chunk sort off.
-    c = _frame(scene, cam, size, monkeypatch, defer=2)
-    np.testing.assert_allclose(a, c, rtol=1e-5, atol=1e-6)
 
 
 def test_vcm_defer_matches_per_bounce(monkeypatch):

@@ -7,7 +7,7 @@ contract: for every lane whose kind IS in `kinds`, every output equals
 the unspecialized (kinds=()) call — bitwise for the material chains
 (whose select structure survives specialization), and up to XLA
 FMA-contraction noise (<=4e-6 relative) for the light chains where a
-single-kind scene drops the select entirely.  This is the TPU analogue
+single-kind scene drops the select entirely.  This is the analogue
 of the reference compiling one shading kernel per material set via
 AnyDSL (reference: render/materials/materials.h virtual dispatch ->
 per-kind formula blocks).

@@ -18,6 +18,9 @@ import numpy as np
 
 
 def main():
+    from imbatracer_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     scene_path = sys.argv[1]
     out = sys.argv[2] if len(sys.argv) > 2 else "light_paths.npz"
     n_paths = int(sys.argv[3]) if len(sys.argv) > 3 else 1024

@@ -8,9 +8,7 @@ sponza/still-life OBJs are absent (tools/run_bench.py docstring), so
 the procedural proxy rows ran perf-only through round 4.  This tool
 reproduces the reference's method on the procedural scenes: a long
 PT self-render (PT is the transport oracle both estimator families
-agree with — LT-vs-PT 1.77%, BPT-vs-PT 2.23%, results/r4_bias5.txt)
-saved as a tone-mapped 8-bit PNG in goldens/ (tracked in git; the
-gitignored results/ dir lost one round's artifacts already).
+agree with) saved as a tone-mapped 8-bit PNG in goldens/.
 
 Usage:
     python tools/render_golden.py still_life_512_len4 -t 900
@@ -25,7 +23,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/imbatracer_jax_cache")
 
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "goldens")
@@ -48,9 +45,9 @@ def golden_path(name: str) -> str:
 
 def render_golden(name: str, seconds: float, out: str = "") -> str:
     import numpy as np
-    from PIL import Image
 
     from imbatracer_tpu.frontend.engine import make_frame_fn
+    from imbatracer_tpu.io.image import encode_png
     from imbatracer_tpu.frontend.renderer import (ProgressiveRenderer,
                                                   RenderSettings)
     from imbatracer_tpu.utils.metrics import quantize, rmse
@@ -88,12 +85,16 @@ def render_golden(name: str, seconds: float, out: str = "") -> str:
 
     out = out or golden_path(name)
     os.makedirs(os.path.dirname(out), exist_ok=True)
-    Image.fromarray(quantize(np.asarray(img))).save(out)
+    with open(out, "wb") as f:
+        f.write(encode_png(quantize(np.asarray(img))))
     print(f"wrote {out}")
     return out
 
 
 def main():
+    from imbatracer_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("names", nargs="*", help="golden names (see --list)")
     ap.add_argument("--list", action="store_true")
